@@ -1,5 +1,5 @@
 # Developer conveniences.
-.PHONY: test demos bench native tpu-validate lint clean
+.PHONY: test demos bench native chip-smoke lint clean
 
 test:
 	python -m pytest tests/ -x -q
@@ -13,9 +13,9 @@ bench:
 native:
 	./native/build.sh
 
-tpu-validate:
-	python scripts/tpu_validate.py
+chip-smoke:
+	python chip_smoke.py
 
 clean:
-	rm -rf demos/results_* demos/demo_perf_output .pytest_cache
+	rm -rf demos/results_* demos/demo_perf_output .pytest_cache .jax_cache
 	find . -name __pycache__ -type d -exec rm -rf {} +

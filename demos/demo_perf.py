@@ -9,9 +9,9 @@
 #   BuildMesh / BuildSubMeshes / CreateLMSubmesh — same named registry keys;
 #   ComputeIntegrationData — assembler construction (dof maps + sparsity);
 #   Compile — first execution of the jitted end-to-end Schur solve (XLA
-#       trace+compile replaces FFCx C-kernel JIT; with
-#       NXFX_COMPILATION_CACHE set this loads the persistent executable
-#       cache instead — the cross-process cold-vs-warm study the reference
+#       trace+compile replaces FFCx C-kernel JIT; with the persistent
+#       compilation cache enabled this loads the cached executable
+#       instead — the cross-process cold-vs-warm study the reference
 #       runs on the FFCx cache lives in scripts/compile_cache_study.py);
 #   CompileCached — second dispatch of the already-compiled executable;
 #   Assemble — coefficient evaluation + per-edge condensation;
@@ -129,19 +129,11 @@ for n in ns:
     # system (SuperLU as the MUMPS stand-in), skipped at the largest sizes
     # unless the full sweep is requested.
     if 2**n - 1 <= 70000:
-        import numpy as np
-        import scipy.sparse as sp
         import scipy.sparse.linalg as spla
 
-        vals = np.concatenate(
-            [np.asarray(assembler._cell_mass).ravel(), assembler._static_vals]
-        )
-        As = sp.csc_matrix(
-            (vals, (assembler._all_rows, assembler._all_cols)),
-            shape=(assembler.num_dofs,) * 2,
-        )
+        As, bh = assembler.host_system()
         t0 = time.perf_counter()
-        spla.splu(As).solve(np.asarray(assembler._b_host))
+        spla.splu(As).solve(bh)
         timings["SolveDirectLU"][n] = time.perf_counter() - t0
 
     for phase, key in tracked.items():

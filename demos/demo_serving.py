@@ -6,8 +6,7 @@ JAX's async dispatch overlaps each solve's execution with the next
 dispatch, so steady-state throughput is set by the device program alone
 (see docs/solvers.md "Serving: pipelined dispatch").
 
-On one TPU v5e chip the 16-generation arterial tree (5.34M dofs) serves
-at ~0.8 ms/solve (~6.6e9 dofs/s) at pipeline depth 64.  Run with
+It prints the per-solve time at the given pipeline depth.  Run with
 ``NXFX_PLATFORM=cpu`` for a CPU demonstration (same code path).
 
 Usage::

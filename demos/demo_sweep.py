@@ -1,4 +1,4 @@
-"""Batched parameter sweep + adjoint sensitivities (TPU-native extras).
+"""Batched parameter sweep + adjoint sensitivities (beyond the reference).
 
 No counterpart exists in the reference: these capabilities come from the
 fused solve being a pure JAX function.  A resistance sweep over an

@@ -1,4 +1,4 @@
-"""networks_fenicsx_tpu — TPU-native hydraulic network finite elements.
+"""networks_fenicsx_tpu — array-native hydraulic network finite elements.
 
 A from-scratch JAX/XLA re-implementation of the capabilities of
 ``networks_fenicsx`` (an MPI/DOLFINx/PETSc finite-element solver for

@@ -4,7 +4,7 @@ The reference exports every solution block through DOLFINx's
 ``io.VTXWriter`` — an ADIOS2 BP dataset carrying a ``vtk.xml`` attribute
 that ParaView's VTX reader understands (reference
 ``post_processing.py:55-78``; SURVEY §2b N8).  This module provides the
-same artifact for the TPU build: :func:`write_bp` mirrors
+same artifact here: :func:`write_bp` mirrors
 :func:`networks_fenicsx_tpu.io.vtk.write_vtu`'s signature and writes one
 (or, via ``VTXTimeSeriesWriter``, many) time steps into a ``.bp`` dataset
 with the VTX variable layout:

@@ -4,7 +4,7 @@ Host-side replacement for the reference's ADIOS2 VTXWriter / XDMF output
 (reference ``post_processing.py:55-97`` via ``dolfinx.io``): solutions and
 meshes are written as ``.vtu`` unstructured-grid files (ParaView
 compatible) from gathered host arrays.  The reference's ``.bp``/ADIOS2
-backend has no TPU-side counterpart here; VTU is the equivalent
+backend is mirrored by :mod:`.bp`; VTU is the dependency-free
 visualisation path (SURVEY §2b row N8).
 
 Two encodings:

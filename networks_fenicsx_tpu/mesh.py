@@ -1,6 +1,6 @@
 """Graph → array-native network mesh.
 
-TPU-first replacement for the reference mesh layer
+Array-native replacement for the reference mesh layer
 (``src/networks_fenicsx/mesh.py``): where the reference converts a
 :class:`networkx.DiGraph` into a distributed DOLFINx mesh with per-color
 C++ submesh objects, entity maps and MeshTags (reference ``mesh.py:45-538``),
@@ -20,7 +20,7 @@ float arrays:
   (reference ``mesh.py:189-209,258-263``).
 
 "Submeshes" are index-set views (:class:`SubmeshView`), not separate mesh
-objects; sharding across TPU devices happens by slicing the edge axis
+objects; sharding across devices happens by slicing the edge axis
 (see :mod:`networks_fenicsx_tpu.parallel`), which replaces the reference's
 ParMETIS partitioning + shared-facet ghosting (reference ``mesh.py:331-348``).
 
@@ -33,13 +33,18 @@ MPI broadcasts (reference ``mesh.py:227-250``).
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Iterable
+from typing import TYPE_CHECKING, Any, Callable, Iterable
 
-import networkx as nx
 import numpy as np
 import numpy.typing as npt
 
 from .utils.timing import timed
+
+if TYPE_CHECKING:
+    import networkx as nx
+
+# networkx is imported only where a DiGraph is built or consumed, so the
+# array-native path (``ArrayNetwork`` in, arrays out) runs without it.
 
 __all__ = [
     "ArrayNetwork",
@@ -55,7 +60,7 @@ __all__ = [
 class ArrayNetwork:
     """Array-native network description accepted by :class:`NetworkMesh`.
 
-    The TPU-native alternative to ``networkx.DiGraph`` for large generated
+    The array-native alternative to ``networkx.DiGraph`` for large generated
     networks: building a 1M-edge DiGraph costs ~35 s of Python object
     overhead (per-node attribute dicts, per-edge tuples) while the mesh
     layer immediately converts everything back to flat arrays.  Generators
@@ -80,6 +85,8 @@ class ArrayNetwork:
 
     def to_networkx(self) -> nx.DiGraph:
         """Materialise the equivalent ``networkx.DiGraph`` (slow at scale)."""
+        import networkx as nx
+
         G = nx.DiGraph()
         pos = np.asarray(self.pos, dtype=np.float64)
         G.add_nodes_from((i, {"pos": pos[i].tolist()}) for i in range(pos.shape[0]))
@@ -91,6 +98,12 @@ class ArrayNetwork:
         else:
             G.add_edges_from((int(u), int(v)) for u, v in np.asarray(self.edges))
         return G
+
+
+def _is_digraph(graph) -> bool:
+    import networkx as nx
+
+    return isinstance(graph, nx.DiGraph)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -156,6 +169,8 @@ def color_graph(
         return {edge: i for i, edge in enumerate(graph.edges)}
     if strategy == "fast":
         return fast_greedy_edge_coloring(graph)
+    import networkx as nx
+
     line = nx.line_graph(graph.to_undirected())
     return nx.coloring.greedy_color(line, strategy=strategy)
 
@@ -289,7 +304,7 @@ class NetworkMesh:
             if radii is not None and radii.shape != (E,):
                 raise ValueError("ArrayNetwork.radius must have shape (E,)")
             edge_color = self._color_edge_array(graph, edges, V, color_strategy)
-        elif isinstance(graph, nx.DiGraph):
+        elif _is_digraph(graph):
             V = graph.number_of_nodes()
             E = graph.number_of_edges()
             if E == 0:

@@ -17,14 +17,16 @@ with vectorized NumPy on the host; the graphs feed
 
 from __future__ import annotations
 
-from typing import Callable
+from typing import TYPE_CHECKING, Callable
 
-import networkx as nx
 import numpy as np
 import numpy.typing as npt
 
 from .mesh import ArrayNetwork
 from .utils.timing import timed
+
+if TYPE_CHECKING:
+    import networkx as nx
 
 __all__ = [
     "ArrayNetwork",
@@ -34,6 +36,13 @@ __all__ = [
     "make_random_network",
     "make_vascular_bed",
 ]
+
+
+def _digraph() -> "nx.DiGraph":
+    """An empty DiGraph; networkx is imported only for ``arrays=False``."""
+    import networkx as nx
+
+    return nx.DiGraph()
 
 
 def _binary_tree_edges(num_nodes: int) -> np.ndarray:
@@ -100,7 +109,7 @@ def make_tree(
 
     if arrays:
         return ArrayNetwork(pos=coords, edges=_binary_tree_edges(num_nodes))
-    G = nx.DiGraph()
+    G = _digraph()
     G.add_nodes_from(range(num_nodes))
     for i in range(num_nodes):
         G.nodes[i]["pos"] = coords[i].tolist() if dim == 2 else list(coords[i])
@@ -171,7 +180,7 @@ def make_grid(
         )
         return ArrayNetwork(pos=pos, edges=edges)
 
-    G = nx.DiGraph()
+    G = _digraph()
 
     def nid(i: int, j: int) -> int:
         return j * nx_cells + i
@@ -308,7 +317,7 @@ def _make_arterial_tree_vectorized(
     radii = np.concatenate(radii_chunks)
     if arrays:
         return ArrayNetwork(pos=pos, edges=edges, radius=radii)
-    G = nx.DiGraph()
+    G = _digraph()
     G.add_nodes_from((i, {"pos": p}) for i, p in enumerate(pos))
     G.add_edges_from(
         (int(u), int(v), {"radius": float(r)}) for (u, v), r in zip(edges, radii)
@@ -374,7 +383,7 @@ def make_arterial_tree(
             "configuration (random=False, normal=_default_normal)"
         )
 
-    G = nx.DiGraph()
+    G = _digraph()
     root_len = D0 * lmbda
     p1 = p0 + root_len * direction / np.linalg.norm(direction)
     G.add_node(0, pos=p0)
@@ -512,7 +521,7 @@ def make_random_network(
 
     if arrays:
         return ArrayNetwork(pos=all_pos, edges=all_edges.astype(np.int64))
-    G = nx.DiGraph()
+    G = _digraph()
     for i in range(all_pos.shape[0]):
         G.add_node(i, pos=all_pos[i])
     for u, v in all_edges:

@@ -9,7 +9,7 @@ solver (MUMPS, reference ``solver.py:62``): an exact sparse Cholesky-style
 elimination of the SPD core Schur system with host-planned structure and a
 device-executed numeric phase.
 
-Design (TPU-first):
+Design:
 
 * **Host symbolic phase** (:func:`plan_core_elimination`): greedy
   minimum-degree *independent-set* ordering.  Each round eliminates a
@@ -22,20 +22,20 @@ Design (TPU-first):
   host-pre-aggregated segment scatter-adds (sorted/unique target hints,
   the same idiom as the tree peel).  Everything is f64-exact — the
   elimination *is* an unpivoted Cholesky of an SPD matrix, so no pivoting
-  or refinement is needed outside the tiny dense tail.
+  or refinement is needed.
 * **Dense tail**: once few nodes remain (or every remaining degree exceeds
-  the padding cap) the residual system is solved with the existing
-  mixed-precision dense Cholesky + iterative-refinement kernel.
+  the padding cap) the residual system is solved with the shared scaled
+  dense Cholesky kernel (:mod:`.scaled_cholesky`).
 * **Supernodal front tail** (``supernodal_tail=True``): when the stalled
   remainder exceeds the single-dense-solve envelope (wide separators of
   big lattices / webs), it is eliminated multifrontally instead —
   consecutive chunks of the elimination order become dense *fronts*, each
-  factored with an f64 Cholesky on the MXU, its Schur complement passed
+  factored with an f64 Cholesky, its Schur complement passed
   to the first later front that pivots one of its nodes (extend-add via
   host-precomputed local index maps; a front's boundary is a clique, so
   that front provably absorbs the whole update matrix).  This is the
   multifrontal method of sparse direct solvers (MUMPS' own structure),
-  with fronts as batched dense MXU ops.
+  with fronts as batched dense ops.
 
 The planner returns ``None`` when fill blows past its budget (strongly
 non-planar cores); callers then keep the previous dense/CG behaviour.
@@ -50,7 +50,9 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from .mixed_precision import scaled_cholesky_factor, scaled_cholesky_solve
+from .scaled_cholesky import scaled_cholesky_factor, scaled_cholesky_solve
+
+_HI = jax.lax.Precision.HIGHEST  # no TF32 passes in the float32 mode
 
 __all__ = [
     "CoreElimPlan",
@@ -172,11 +174,10 @@ class _Round(typing.NamedTuple):
     """One elimination round, formulated WITHOUT a materialized slot-value
     array.
 
-    TPU-indexed access costs ~45 ns/element regardless of direction
-    (scatter OR gather), so any per-round op touching the full
-    (n_slots,)-sized state is ruinous at large cores (measured ~12 ms
-    per full-size gather at 1.6M slots — 36 rounds of them made the 320²
-    program seconds long).  Instead the elimination is LEFT-LOOKING over
+    Indexed access (scatter or gather) costs far more per element than a
+    slice, so a per-round op touching the full (n_slots,)-sized state
+    would dominate at large cores (36 such rounds at 320²).  Instead the
+    elimination is LEFT-LOOKING over
     an update STREAM: each round appends its per-slot Schur sums at a
     static offset (contiguous ``dynamic_update_slice`` — free), and a
     slot's single read (every slot is read exactly once, in the round
@@ -353,8 +354,8 @@ def _plan_fold(
     Returns a tuple of padded 2-D int index arrays ("levels") such that
     :func:`_fold_apply` sums the entries of a length-``src_len`` vector
     into ``(U,)`` per-segment totals using only gathers and row sums —
-    the TPU-fast replacement for ``segment_sum``/scatter-add (XLA lowers
-    those serialized on TPU).  ``seg[i]``/``src[i]`` give entry i's
+    a fixed-order replacement for ``segment_sum``/scatter-add.
+    ``seg[i]``/``src[i]`` give entry i's
     segment and its index into the source vector.  Pad cells index one
     past the level's input (the appended zero).  Segments wider than
     ``cap`` fold through intermediate chunk levels, so summation is an
@@ -561,8 +562,8 @@ def plan_core_elimination(
             order) land in the dense tail, as in a multifrontal solver.
         dense_cap: maximum dense-tail size (default
             ``max(dense_cutoff, 4096)``).  ND orders on big lattices
-            stall with top-separator tails of 4-8k — MXU-cheap to factor
-            densely, so the ND caller raises this.
+            stall with top-separator tails of 4-8k — one dense
+            factorization each, so the ND caller raises this.
         supernodal_tail: when the stalled remainder exceeds ``dense_cap``,
             eliminate it multifrontally (see :func:`_plan_fronts`)
             instead of giving up — the path for per-edge-R lattices
@@ -573,10 +574,10 @@ def plan_core_elimination(
         front_stop: with ``supernodal_tail``, break out of the rounds as
             soon as a round shrinks below ``max(64, n_alive/64)`` pivots
             and let the fronts absorb the remainder.  The sliver tail is
-            pure launch overhead on device (measured 512² lattice: the
-            last 32 of 68 rounds eliminate ~2k of 262k nodes; the web50k
-            tail is proportionally longer), while the few extra front
-            pivots are MXU-cheap.  Disabled on a retry when the wider
+            pure launch overhead on device (on a 512² lattice the last 32
+            of 68 rounds eliminate ~2k of 262k nodes), while the few extra
+            front pivots are cheap dense work.  Disabled on a retry when
+            the wider
             remainder makes a front outgrow ``front_cap``.
 
     Returns None when the core is empty or the fill budget is exceeded.
@@ -652,16 +653,16 @@ def plan_core_elimination(
         # Diminishing-returns stop: once independent sets shrink to
         # slivers (fill pushes every degree near the threshold) a long
         # tail of tiny device rounds costs more fixed launches than one
-        # mixed-precision dense solve of the remainder.  Measured at 10k
-        # junctions: without the stop the last ~40 rounds eliminate 1-8
-        # nodes each (76 rounds, 16k HLO lines); stopping at a ≤2048-node
-        # remainder gives 25 rounds / ~4k lines with the dense tail still
-        # MXU-cheap.  Only when the remainder fits the dense envelope.
+        # dense solve of the remainder.  At 10k junctions, without the
+        # stop the last ~40 rounds eliminate 1-8 nodes each (76 rounds,
+        # 16k HLO lines); stopping at a ≤2048-node remainder gives 25
+        # rounds / ~4k lines.  Only when the remainder fits the dense
+        # envelope.
         if tail_stop and n_alive <= 2048 and len(chosen) < max(16, n_alive // 32):
             break
         # Front-stop: with a supernodal tail available there is no reason
         # to crawl through sliver rounds at ANY size — the fronts factor
-        # the remainder in a handful of dense MXU Choleskys.
+        # the remainder in a handful of dense Choleskys.
         if (
             supernodal_tail
             and front_stop
@@ -906,9 +907,8 @@ def _core_factor(
     d = dc
     rounds: list = []
     # Every reduction/update below is a gather-fold + inverse-map gather
-    # (see _plan_fold): XLA lowers scatter/segment_sum SERIALIZED on TPU
-    # (measured 20-25 ms per 50k-segment reduction — it made this program
-    # ~2.6 s/solve at 320²); the folds are exact tree sums at bandwidth.
+    # (see _plan_fold) instead of scatter/segment_sum: exact tree sums in
+    # a fixed order.
     # Slot values are never materialized as an (n_slots,) array: each
     # per-round op is proportional to that round's read/write sets.
     for rd in plan.rounds:
@@ -932,7 +932,7 @@ def _core_factor(
 
     state: dict = {"rounds": tuple(rounds)}
     if plan.fronts:
-        # multifrontal tail: dense f64 Cholesky per front on the MXU,
+        # multifrontal tail: dense f64 Cholesky per front,
         # Schur updates extend-added into the consuming front
         pending: dict[int, jnp.ndarray] = {}
         front_states: list = []
@@ -952,8 +952,8 @@ def _core_factor(
                 F = F.at[fj, fi].add(sval)
             for cid, lminv in fr.consume:
                 # extend-add as a full (m, m) gather from the padded
-                # update matrix (a 2-D scatter of m_c² elements lowers
-                # serialized on TPU); lminv maps F-local -> U-local or
+                # update matrix (instead of a 2-D scatter of m_c²
+                # elements); lminv maps F-local -> U-local or
                 # the zero pad row/col.
                 U = pending.pop(cid)
                 Upad = jnp.pad(U, ((0, 1), (0, 1)))
@@ -968,7 +968,7 @@ def _core_factor(
             )
             if b:
                 X = jax.scipy.linalg.cho_solve((C, True), F[:w, w:])
-                pending[fid] = F[w:, w:] - F[w:, :w] @ X
+                pending[fid] = F[w:, w:] - jnp.matmul(F[w:, :w], X, precision=_HI)
             else:
                 X = None
             front_states.append((C, X))
@@ -987,7 +987,7 @@ def _core_factor(
                 ov = ov - _fold_apply_pre(ustream, plan.dp_fold)
             Lc = Lc.at[di, dj].add(ov)
             Lc = Lc.at[dj, di].add(ov)
-        # mixed-precision Cholesky + refinement (the shared dense-tail kernel)
+        # Jacobi-scaled f64 Cholesky (the shared dense-tail kernel)
         state["dense"] = scaled_cholesky_factor(Lc)
     return state
 
@@ -1020,7 +1020,7 @@ def _core_apply(
             rv_f = r[jnp.asarray(fr.nodes)]
             front_rv.append(rv_f)
             if X is not None:
-                r = r.at[jnp.asarray(fr.bnd)].add(-(X.T @ rv_f))
+                r = r.at[jnp.asarray(fr.bnd)].add(-jnp.matmul(X.T, rv_f, precision=_HI))
 
     lam = jnp.zeros(Bc + 1, dtype)  # +1: padded neighbour reads
     if plan.dense_nodes.size:
@@ -1034,7 +1034,7 @@ def _core_apply(
         ):
             lam_s = jax.scipy.linalg.cho_solve((C, True), rv_f)
             if X is not None:
-                lam_s = lam_s - X @ lam[jnp.asarray(fr.bnd)]
+                lam_s = lam_s - jnp.matmul(X, lam[jnp.asarray(fr.bnd)], precision=_HI)
             lam = lam.at[jnp.asarray(fr.nodes)].set(lam_s)
         # zero-pivot gate: poison the whole core solution so callers'
         # finiteness guards fail loudly (matching the dense-tail path)

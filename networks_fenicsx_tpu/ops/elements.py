@@ -1,6 +1,6 @@
 """Closed-form interval finite elements (equispaced Lagrange + DG).
 
-TPU-native replacement for the Basix element tabulation
+Replacement for the Basix element tabulation
 (reference ``assembly.py:127-150`` uses ``basix.ufl.element("Lagrange",
 "interval", degree, lagrange_variant=equispaced)``) and for the whole
 UFL → FFCx JIT C-kernel pipeline (reference ``assembly.py:288-299``): on a 1D

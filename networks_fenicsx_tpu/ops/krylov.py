@@ -2,9 +2,9 @@
 
 Replaces the PETSc KSP layer of the reference (``solver.py:41-73``) for the
 iterative paths.  Both solvers are matrix-free (take a ``matvec`` callable),
-jit-friendly (``lax.while_loop``, static shapes) and run in float64 on TPU —
-only elementwise ops, reductions and the caller's matvec are used, so no
-f32-only XLA expanders are hit.
+jit-friendly (``lax.while_loop``, static shapes) and run in the operands'
+dtype (float64 by default) — only elementwise ops, reductions and the
+caller's matvec are used.
 """
 
 from __future__ import annotations
@@ -32,7 +32,7 @@ def chebyshev_preconditioner(
     ``lam_max < 2`` holds unconditionally (Gershgorin with unit diagonal),
     so no eigenvalue estimation is needed.
 
-    Why on TPU: each CG iteration pays sequential overhead (two inner
+    Why: each CG iteration pays sequential overhead (two inner
     products force serialization, plus the iteration's fixed kernel-launch
     cost) that dwarfs the matvec arithmetic at small/medium B.  A degree-d
     polynomial preconditioner folds d matvecs into ONE preconditioner

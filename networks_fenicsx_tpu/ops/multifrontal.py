@@ -2,28 +2,27 @@
 
 The rounds-based sparse elimination (:mod:`.core_elim`) is gather/fold
 bound: a 320² per-edge-R lattice costs 36 unrolled rounds carrying ~52M
-gather/fold elements (~2.4 s/solve on chip) plus a CHAIN of 11 sequential
-dense fronts, and its HLO takes minutes to compile.  This module is the
-TPU-first replacement for large cores — the full multifrontal method of
-sparse direct solvers (MUMPS' own structure, reference ``solver.py:62``),
-organised around the nested-dissection separator TREE so the work is
-dense, batched MXU ops instead of sparse index traffic.
+gather/fold elements plus a CHAIN of 11 sequential dense fronts, and its
+HLO takes minutes to compile.  This module is the replacement for large
+cores — the full multifrontal method of sparse direct solvers (MUMPS' own
+structure, reference ``solver.py:62``), organised around the
+nested-dissection separator TREE so the work is dense, batched ops
+instead of sparse index traffic.
 
-On-chip microbenchmarks (round 5) dictated three design rules:
+Design rules:
 
-* **No stock batched linalg.**  XLA's TPU Cholesky/triangular-solve
-  SERIALIZE over the batch dimension in f64 (a (1600,64,64) Cholesky
-  measures ~1.1 s); f32 has a fast path, and matmuls are ~free.  The
-  factorization therefore runs in **f32** with a custom batched panel
-  Cholesky + explicit triangular inverse (:func:`chol_inverse_batched`)
-  built from masked ``fori_loop`` steps and MXU matmuls, and the final
-  f64 accuracy is recovered with **iterative refinement** against the
-  exact f64 core operator (the mixed-precision idiom the dense tail
-  already uses, here at the whole-core level).
-* **No large 2-D gathers.**  A (1600,112,112) extend-add fancy-gather
-  measures ~600 ms (~30 ns/element); the same contraction as two one-hot
-  MXU matmuls is ~1 ms.  Frontal assembly and extend-add are expressed
-  as compare-generated one-hot operands (`gather -> matmul` conversion).
+* **f32 factor, f64 refinement.**  Each batched front group is factored
+  in **f32** into an explicit inverse triangular factor
+  (:func:`chol_inverse_batched`: stock batched Cholesky, then a batched
+  triangular solve against I), and the final f64 accuracy is recovered
+  with **iterative refinement** against the exact f64 core operator.
+  (Chosen on earlier hardware where f64 factorization was emulated; an
+  all-f64 factor without refinement is not measured on the H100.)
+* **One-hot matmuls instead of 2-D gathers.**  Frontal assembly and
+  extend-add are expressed as compare-generated one-hot operands
+  (`gather -> matmul` conversion), chosen where 2-D gathers were slow;
+  on the H100 a (1600,112,112) extend-add gather measures 0.168 ms, at
+  the launch floor (ROADMAP Queue 3 item 2).
 * **Few device buffers, few programs.**  Fronts are grouped by (tree
   level, padded size class); each group executes as ONE batched dense
   program, and all index payloads are concatenated into a handful of
@@ -554,103 +553,18 @@ def plan_multifrontal(
 
 
 # ---------------------------------------------------------------------------
-# device: custom batched dense kernels
+# device: batched dense kernel
 # ---------------------------------------------------------------------------
 
 
-def _chol_inv_small(D: jnp.ndarray) -> jnp.ndarray:
-    """Batched Cholesky + explicit inverse of small SPD blocks.
-
-    ``D`` is ``(k, n, n)``; returns ``Li = inv(chol(D))`` (lower).  Runs
-    as two masked ``fori_loop`` column sweeps over batched elementwise
-    ops — XLA's own Cholesky/triangular-solve serialize over the batch
-    dimension on TPU (measured ~0.7 ms per batch element), this stays
-    batched at any k.
-    """
-    k, n, _ = D.shape
-    dt = D.dtype
-    iota = jnp.arange(n)
-
-    def chol_step(i, carry):
-        T, L = carry
-        e = (iota == i).astype(dt)  # (n,)
-        piv = jnp.sqrt(jnp.maximum(
-            jnp.einsum("kij,i,j->k", T, e, e, precision=_HI),
-            jnp.asarray(0.0, dt),
-        ))
-        mask = (iota >= i).astype(dt)
-        col = jnp.einsum("kij,j->ki", T, e, precision=_HI)
-        col = col * mask[None, :] / piv[:, None]
-        T = T - col[:, :, None] * col[:, None, :]
-        L = L + col[:, :, None] * e[None, None, :]
-        return T, L
-
-    _, L = jax.lax.fori_loop(0, n, chol_step, (D, jnp.zeros_like(D)))
-
-    def inv_step(i, X):
-        e = (iota == i).astype(dt)
-        Lrow = jnp.einsum("kij,i->kj", L, e, precision=_HI)  # row i of L
-        low = Lrow * (iota < i).astype(dt)[None, :]
-        d = jnp.einsum("kj,j->k", Lrow, e, precision=_HI)
-        xrow = (e[None, :] - jnp.einsum("kj,kjn->kn", low, X, precision=_HI))
-        xrow = xrow / d[:, None]
-        return X + xrow[:, None, :] * e[None, :, None]
-
-    Li = jax.lax.fori_loop(0, n, inv_step, jnp.zeros_like(D))
-    return Li
-
-
-def chol_inverse_batched(A: jnp.ndarray, nb: int = 32) -> jnp.ndarray:
-    """Batched blocked Cholesky with explicit triangular inverse.
-
-    ``A`` is ``(k, w, w)`` SPD; returns ``Li = inv(chol(A))`` (lower
-    triangular).  Right-looking panel factorization: per ``nb``-column
-    panel one :func:`_chol_inv_small` plus two MXU matmuls (panel scale +
-    trailing Schur update), then the inverse assembles by block forward
-    substitution — matmuls throughout, batched over k.
-    """
-    k, w, _ = A.shape
-    if w <= nb:
-        return _chol_inv_small(A)
-    panels: list[tuple[int, int, jnp.ndarray, jnp.ndarray | None]] = []
-    T = A
-    for a in range(0, w, nb):
-        b = min(a + nb, w)
-        Ldi = _chol_inv_small(T[:, a:b, a:b])
-        if b < w:
-            Pcol = jnp.einsum(
-                "kij,klj->kil", T[:, b:, a:b], Ldi, precision=_HI
-            )  # L[b:, a:b] = T[b:, a:b] @ Ldi^T
-            T = T.at[:, b:, b:].add(
-                -jnp.einsum("kij,klj->kil", Pcol, Pcol, precision=_HI)
-            )
-        else:
-            Pcol = None
-        panels.append((a, b, Ldi, Pcol))
-    # block forward substitution: Li grows one panel row-block at a time
-    Li = panels[0][2]  # (k, nb, nb)
-    for idx in range(1, len(panels)):
-        a, b, Ldi, _ = panels[idx]
-        rows = [
-            P2[:, a - b2 : b - b2, :]
-            for (_a2, b2, _L2, P2) in panels[:idx]
-        ]
-        Lrow = jnp.concatenate(rows, axis=2)  # (k, b-a, a)
-        left = -jnp.einsum(
-            "kij,kjl->kil", Ldi,
-            jnp.einsum("kij,kjl->kil", Lrow, Li, precision=_HI),
-            precision=_HI,
-        )
-        Li = jnp.concatenate(
-            [
-                jnp.concatenate(
-                    [Li, jnp.zeros((k, a, b - a), Li.dtype)], axis=2
-                ),
-                jnp.concatenate([left, Ldi], axis=2),
-            ],
-            axis=1,
-        )
-    return Li
+def chol_inverse_batched(A: jnp.ndarray) -> jnp.ndarray:
+    """``Li = inv(chol(A))`` (lower triangular) for a ``(k, w, w)`` batch of
+    SPD blocks: stock batched Cholesky, then a batched triangular solve
+    against the identity.  A non-SPD block comes back non-finite (the
+    caller's pivot check)."""
+    L = jnp.linalg.cholesky(A)
+    eye = jnp.broadcast_to(jnp.eye(A.shape[-1], dtype=A.dtype), A.shape)
+    return jax.lax.linalg.triangular_solve(L, eye, left_side=True, lower=True)
 
 
 # ---------------------------------------------------------------------------
@@ -669,7 +583,7 @@ def _slice3(buf, off: int, k: int, n: int, m: int):
 def _consume_onehot(plan, g, cg_meta, cidx_off, lminv_off, dt):
     """One-hot selection operand for a consume edge: ``P (k, u1, m)`` with
     ``P[p, a, i] = [lminv[p, i] == a]``; extend-add and rhs folds become
-    MXU contractions against it (gather → matmul conversion)."""
+    matmul contractions against it (gather → matmul conversion)."""
     k, m = g.k, g.w + g.b
     u1 = cg_meta.b + 1
     lminv = _slice2(plan.lminv_all, lminv_off, k, m)
@@ -787,8 +701,7 @@ def _mf_apply(plan: MFPlan, state: dict, rc: jnp.ndarray) -> jnp.ndarray:
 
     The f32 factor is a ~1e-6-quality inverse; ``n_refine`` refinement
     sweeps against the exact f64 core operator (host-planned fold
-    reductions, no scatters) recover ~1e-12 relative accuracy — the
-    whole-core analog of the dense tail's mixed-precision kernel."""
+    reductions, no scatters) recover ~1e-12 relative accuracy."""
     from .core_elim import _fold_apply
 
     in_dt = rc.dtype

@@ -3,10 +3,9 @@
 Round 2's multi-device paths always ran the GENERAL ``(E, N, 2, 2)``
 edge-data layout, so on a real pod the flagship per-device program would
 have paid the interleave idioms the serial blocked executor eliminates
-(STATUS.md "blocked-sibling" analysis: within-lane reorders cost 2–5 ms
-per op at benchmark sizes, while contiguous slices/adds/concats are
-~free).  This module gives the sharded path the same interleave-free
-device program, the TPU-native analog of MUMPS running its multifrontal
+(within-row reorders instead of contiguous slices/adds/concats).  This
+module gives the sharded path the same interleave-free device program,
+the analog of MUMPS running its multifrontal
 elimination in parallel over MPI ranks (reference
 ``src/networks_fenicsx/solver.py:58-65``):
 
@@ -485,7 +484,8 @@ def sharded_blocked_sweep(
     infeasible.  Only the resistance varies per scenario; f and the
     boundary pressures are those of the assembler's computed forms.
 
-    Returns ``x (S, num_dofs)`` host array in the public layout.
+    Returns ``(x, (inputs, outputs))``: ``x (S, num_dofs)`` host array in
+    the public layout, and the program's sharded device arrays.
     """
     R_mode, f_mode, _ = asm.coefficient_modes()
     if R_mode != "edge":
@@ -554,13 +554,15 @@ def sharded_blocked_sweep(
     ))
     sharding_R = NamedSharding(mesh2d, spec_R)
     sharding_e = NamedSharding(mesh2d, spec_e)
-    q_T, p_T, lam_loc, lam_T, _rhs, finite = fn(
+    ins = (
         jax.device_put(jnp.asarray(R_rows), sharding_R),
         jax.device_put(f_rows, sharding_e),
         jax.device_put(spbc_rows, sharding_e),
         jax.device_put(epbc_rows, sharding_e),
         jax.device_put(rows_dev, {f: sharding_e for f in rows_dev}),
     )
+    outs = fn(*ins)
+    q_T, p_T, lam_loc, lam_T, _rhs, finite = outs
     if not bool(np.all(np.asarray(finite))):
         raise RuntimeError(
             "Solver did not converge: sharded blocked sweep produced "
@@ -577,4 +579,4 @@ def sharded_blocked_sweep(
 
     from .sharding import _scatter_blocks_to_x
 
-    return _scatter_blocks_to_x(asm, q_edge, p_cells, lam)
+    return _scatter_blocks_to_x(asm, q_edge, p_cells, lam), (ins, outs)

@@ -4,7 +4,7 @@ Round-1's sharded solver psum-reduced the bifurcation Schur system and ran
 the λ elimination REPLICATED on every device — O(B) memory and work per
 chip, which caps scaling exactly at the BASELINE north-star sizes (n=20
 trees have B = 524,287 multipliers).  This module distributes the λ stage
-itself, the TPU-native analog of MUMPS's multifrontal parallel elimination
+itself, the analog of MUMPS's multifrontal parallel elimination
 over MPI ranks (reference ``solver.py:58-65``):
 
 * the bifurcation forest is partitioned on the host into ``D`` bins of
@@ -281,8 +281,8 @@ def plan_distributed_tree(
         """Per-device (sel into local edges, mask, gather-fold idx) stacks.
 
         The reduction is expressed as a PULL (each target gathers its
-        boundedly-many contributions) because TPU scatter-adds serialize
-        while gathers vectorize; pad slots point past the valid stream."""
+        boundedly-many contributions) in a fixed summation order instead
+        of a scatter-add; pad slots point past the valid stream."""
         sels, segs = [], []
         for k in range(D):
             mine = edge_dev[edge_ids] == k
@@ -418,8 +418,8 @@ def local_eliminate(plan: DistTreePlan, rows: dict, ed, axis: str):
 
     def reduce_local(vals, name):
         # pull-style reduction: each target gathers its contributions
-        # through the host-built fold (TPU scatters serialize, gathers
-        # vectorize); the fold's pad entries point at the appended zero.
+        # through the host-built fold (fixed order, no scatter); the
+        # fold's pad entries point at the appended zero.
         # ``vals`` may be (n,) or (n, C) — channels sharing the layout
         # reduce through one gather.
         mask = row(rows[f"{name}_mask"])

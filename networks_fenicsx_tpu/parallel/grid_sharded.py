@@ -445,7 +445,8 @@ def sharded_grid_sweep(
     in the serial executor); f and the boundary pressures are those of the
     assembler's computed forms.
 
-    Returns ``x (S, num_dofs)`` host array in the public layout.
+    Returns ``(x, (inputs, outputs))``: ``x (S, num_dofs)`` host array in
+    the public layout, and the program's sharded device arrays.
     """
     R_mode, f_mode, _ = asm.coefficient_modes()
     if R_mode != "scalar":
@@ -519,7 +520,7 @@ def sharded_grid_sweep(
     sh_b = NamedSharding(mesh2d, spec_b)
     sh_e = NamedSharding(mesh2d, spec_e)
     sh_f = NamedSharding(mesh2d, spec_c if f_mode == "cell" else spec_e)
-    q_T, p_T, lam, _lam_T, _res, _rhs_n, finite = fn(
+    ins = (
         jax.device_put(jnp.asarray(R_all), sh_b),
         jax.device_put(jnp.asarray(R_unit), sh_e),
         jax.device_put(jnp.asarray(f_rows), sh_f),
@@ -527,7 +528,10 @@ def sharded_grid_sweep(
         jax.device_put(jnp.asarray(ep_rows), sh_e),
         jax.device_put(rows_dev, {f: sh_e for f in rows_dev}),
     )
+    outs = fn(*ins)
     from .sharding import _to_host
+
+    q_T, p_T, lam, _lam_T, _res, _rhs_n, finite = outs
 
     if not bool(np.all(_to_host(finite)[:S])):
         raise RuntimeError(
@@ -543,4 +547,4 @@ def sharded_grid_sweep(
 
     from .sharding import _scatter_blocks_to_x
 
-    return _scatter_blocks_to_x(asm, q_edge, p_cells, lam_h)
+    return _scatter_blocks_to_x(asm, q_edge, p_cells, lam_h), (ins, outs)

@@ -1,23 +1,23 @@
-"""Multi-host (DCN) runtime initialisation.
+"""Multi-host runtime initialisation.
 
-The single-host path needs nothing: one controller, devices over ICI.  On a
-TPU pod slice (or any multi-process GPU/CPU cluster), every host runs the
-same program and must join the JAX distributed runtime before first device
-use — the role ``mpiexec`` + ``MPI_Init`` play for the reference
-(reference ``.github/workflows/test_package.yml:33-45``, ``mesh.py:227-250``
-metadata broadcast; here there is nothing to broadcast — each controller
-traces the same program and XLA runs collectives over ICI/DCN).
+A single host needs nothing: one process drives every local device (all
+GPUs of a multi-GPU host, joined by NVLink).  Across hosts, one process per
+host runs the same program and must join the JAX distributed runtime before
+first device use — the role ``mpiexec`` + ``MPI_Init`` play for the
+reference (reference ``.github/workflows/test_package.yml:33-45``,
+``mesh.py:227-250`` metadata broadcast; here there is nothing to broadcast —
+each controller traces the same program and XLA runs the collectives).
 
 Call :func:`ensure_distributed` once at program start.  It is a no-op
 unless multi-host execution is actually configured (explicit arguments,
-``NXFX_COORDINATOR`` set, or a recognised cluster environment such as TPU
-pod metadata / SLURM), so library code and single-host scripts can call it
-unconditionally.
+``NXFX_COORDINATOR`` set, or a SLURM / Open MPI job that
+``jax.distributed`` auto-detects), so library code and single-host scripts
+can call it unconditionally.
 
-Launch recipe (v5e pod slice, one process per host)::
+Launch recipe (one process per host)::
 
-    # all hosts, e.g. via `gcloud compute tpus tpu-vm ssh ... --worker=all`
-    python demo_arterial_tree.py   # calls ensure_distributed() internally
+    # under SLURM or Open MPI: the launcher's environment is auto-detected
+    srun python demo_arterial_tree.py   # calls ensure_distributed() internally
 
     # explicit coordination when auto-detection is unavailable:
     NXFX_COORDINATOR=10.0.0.2:8476 NXFX_NUM_PROCESSES=4 NXFX_PROCESS_ID=$i \
@@ -50,7 +50,7 @@ def ensure_distributed(
     Resolution order for each parameter: explicit argument, then the
     ``NXFX_COORDINATOR`` / ``NXFX_NUM_PROCESSES`` / ``NXFX_PROCESS_ID``
     environment variables, then ``jax.distributed``'s own cluster
-    auto-detection (TPU pod metadata, SLURM, Open MPI).
+    auto-detection (SLURM, Open MPI).
 
     Returns:
         True if the distributed runtime is active after the call (either
@@ -71,12 +71,7 @@ def ensure_distributed(
     # environment jax can auto-detect is present; otherwise stay single-host.
     auto_cluster = any(
         os.environ.get(var)
-        for var in (
-            "TPU_WORKER_HOSTNAMES",  # TPU pod metadata
-            "MEGASCALE_COORDINATOR_ADDRESS",
-            "SLURM_JOB_ID",
-            "OMPI_MCA_orte_hnp_uri",
-        )
+        for var in ("SLURM_JOB_ID", "OMPI_MCA_orte_hnp_uri")
     )
     if coordinator_address is None and not auto_cluster:
         return False

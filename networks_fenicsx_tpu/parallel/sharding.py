@@ -1,6 +1,6 @@
 """Edge-partitioned multi-device execution via ``shard_map``.
 
-TPU-native replacement for the reference's MPI-SPMD domain decomposition:
+Replacement for the reference's MPI-SPMD domain decomposition:
 the reference scatters mesh cells across ranks with ParMETIS/SCOTCH and
 shared-facet ghosting (reference ``mesh.py:331-348``), broadcasts graph
 metadata (``mesh.py:227-250``) and reconciles shared rows with reverse-ADD /
@@ -10,7 +10,7 @@ Here the network's edge axis is sharded across a ``jax.sharding.Mesh``.
 Every per-edge quantity (condensed cell masses, chain cumsums, boundary
 data) lives on the device that owns the edge; the only cross-device coupling
 is the bifurcation Schur system, whose per-device scatter contributions are
-reduced with a single ``psum`` over the ICI mesh — the collective that
+reduced with a single ``psum`` over the device mesh — the collective that
 replaces ghost updates.  The (small, replicated) SPD Laplacian is then
 factorised identically on every device and back-substitution is purely
 local.  Graph metadata needs no broadcast: it is baked into the jitted
@@ -28,7 +28,7 @@ from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 from .. import assembly as _assembly
 from ..function import NetworkFunction
 from ..ops import krylov
-from ..ops.mixed_precision import scaled_cholesky_factor, scaled_cholesky_solve
+from ..ops.scaled_cholesky import scaled_cholesky_factor, scaled_cholesky_solve
 from ..solver import (
     SolveInfo,
     _EdgeData,
@@ -62,7 +62,7 @@ def _to_host(x) -> np.ndarray:
     """Device→host pull that also works under multi-controller execution.
 
     Single-process (including the virtual CPU mesh): a plain
-    ``np.asarray``.  Multi-process (``jax.distributed`` over DCN — the
+    ``np.asarray``.  Multi-process (``jax.distributed`` across hosts — the
     reference's ``mpiexec`` analog): an array sharded across processes is
     not fully addressable and must be gathered first (the reference's
     forward-INSERT ghost update on the solution, ``solver.py:128-132``).
@@ -292,16 +292,16 @@ def _sharded_schur_pipeline(
             else:
                 lam = _tree_eliminate(tree_plan, diag, rhs, w_pairs)
         elif schur_method == "dense":
-            # --- psum the partial Laplacian; replicated mixed-precision
+            # --- psum the partial Laplacian; replicated Jacobi-scaled
             # Cholesky (identical on every device, avoids a broadcast).
             L = jnp.zeros((B, B), dtype=ed.W.dtype)
             L = L.at[s_idx, t_idx].add(-off_w)
             L = L.at[t_idx, s_idx].add(-off_w)
             L = jax.lax.psum(L, axis)
             L = L.at[jnp.arange(B), jnp.arange(B)].add(diag)
-            # shared Jacobi-scaled f32 factor + f64 refinement, INCLUDING
-            # the singularity pivot gate (NaN out, so the caller's
-            # non-finite guard raises just like the serial dense path)
+            # shared Jacobi-scaled Cholesky, INCLUDING the singularity
+            # pivot gate (NaN out, so the caller's non-finite guard raises
+            # just like the serial dense path)
             lam = scaled_cholesky_solve(scaled_cholesky_factor(L), rhs)
         else:
             # --- distributed matrix-free CG: the off-diagonal apply is a
@@ -364,6 +364,9 @@ class ShardedNetworkSolver:
         self._blocked_checked: tuple | None = None
         self._asm_modes_key: tuple | None = None
         self._info: SolveInfo | None = None
+        # (inputs, outputs) device arrays of the last solve's sharded
+        # program, so a caller can see which devices held them
+        self.device_io: tuple | None = None
 
     @property
     def device_mesh(self) -> Mesh:
@@ -523,7 +526,9 @@ class ShardedNetworkSolver:
         edge_pair_dev = jax.device_put(
             jnp.asarray(edge_pair), NamedSharding(self._mesh, P(self._axis))
         )
-        q_edge, p_cells, lam = self._pipeline(ed, edge_pair_dev)
+        out = self._pipeline(ed, edge_pair_dev)
+        self.device_io = ((ed, edge_pair_dev), out)
+        q_edge, p_cells, lam = out
         q_edge = _to_host(q_edge)[:E]
         p_cells = _to_host(p_cells)[:E]
         lam = _to_host(lam)
@@ -544,6 +549,7 @@ class ShardedNetworkSolver:
             coeff = asm.schur_arguments(device=False)
         args = ex.prepare_args(*coeff)
         out = ex(*args)
+        self.device_io = (args, out)
         # Dispatch on the executor's declared identity, not tuple arity
         # (arity alone would silently mis-bind positions if a variant
         # ever adds/removes an output).
@@ -628,7 +634,9 @@ class ShardedNetworkSolver:
             self._pipeline = _distributed_tree_pipeline(
                 self._mesh, self._axis, plan, k, N, ed_template=ed
             )
-        q_edge, p_cells, lam_loc, lam_T = self._pipeline(ed, rows)
+        out = self._pipeline(ed, rows)
+        self.device_io = ((ed, rows), out)
+        q_edge, p_cells, lam_loc, lam_T = out
         inv = plan.edge_inv
         q_edge = _to_host(q_edge)[inv]
         p_cells = _to_host(p_cells)[inv]

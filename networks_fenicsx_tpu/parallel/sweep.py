@@ -19,7 +19,7 @@ import jax.numpy as jnp
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
 from .. import assembly as _assembly
-from ..ops.mixed_precision import scaled_cholesky_factor, scaled_cholesky_solve
+from ..ops.scaled_cholesky import scaled_cholesky_factor, scaled_cholesky_solve
 from ..batch import SweepResult
 
 try:
@@ -82,8 +82,8 @@ def sharded_sweep(
                 "lattice (make_grid family); other topologies take "
                 "per-edge R through the forest/general paths"
             )
-        x = sharded_grid_sweep(asm, gplan, np.asarray(R), mesh2d)
-        return SweepResult(asm, jnp.asarray(x))
+        x, io = sharded_grid_sweep(asm, gplan, np.asarray(R), mesh2d)
+        return SweepResult(asm, jnp.asarray(x), device_io=io)
 
     # Blocked fast path (round 3): K-ary forests run the blocked
     # elimination vmapped over the scenario chunk — no dense per-scenario
@@ -94,8 +94,8 @@ def sharded_sweep(
 
         plan = plan_sharded_blocked(asm, De)
         if plan is not None:
-            x = sharded_blocked_sweep(asm, plan, np.asarray(R), mesh2d)
-            return SweepResult(asm, jnp.asarray(x))
+            x, io = sharded_blocked_sweep(asm, plan, np.asarray(R), mesh2d)
+            return SweepResult(asm, jnp.asarray(x), device_io=io)
 
     if asm.flux_degree != 1:
         # the inline general path below hard-codes the P1 closed forms;
@@ -161,9 +161,8 @@ def sharded_sweep(
             L = L.at[t_idx, s_idx].add(-off_w)
             L = jax.lax.psum(L, "edges")
 
-            # shared Jacobi-scaled f32 factor + f64 refinement with the
-            # singularity pivot gate (NaN propagates to the caller's
-            # finiteness guard)
+            # shared Jacobi-scaled Cholesky with the singularity pivot
+            # gate (NaN propagates to the caller's finiteness guard)
             lam = scaled_cholesky_solve(scaled_cholesky_factor(L), rhs)
 
             # local back-substitution (P1, f=0: flux constant per edge)
@@ -194,7 +193,7 @@ def sharded_sweep(
     jfn = jax.jit(fn)
 
     put = lambda a, spec: jax.device_put(jnp.asarray(a), NamedSharding(mesh2d, spec))  # noqa: E731
-    q_chain, p_cells, lam = jfn(
+    ins = (
         put(R_full, spec_R),
         put(h_edge, spec_e),
         put(s_bif, spec_e),
@@ -202,6 +201,8 @@ def sharded_sweep(
         put(s_pbc, spec_e),
         put(t_pbc, spec_e),
     )
+    outs = jfn(*ins)
+    q_chain, p_cells, lam = outs
     q_chain = np.asarray(q_chain)[:S, :E]
     p_cells = np.asarray(p_cells)[:S, :E]
     lam = np.asarray(lam)[:S]
@@ -211,4 +212,4 @@ def sharded_sweep(
     from .sharding import _scatter_blocks_to_x
 
     x = _scatter_blocks_to_x(asm, q_chain, p_cells, lam)
-    return SweepResult(asm, jnp.asarray(x))
+    return SweepResult(asm, jnp.asarray(x), device_io=(ins, outs))

@@ -1,6 +1,6 @@
 """Solvers for the hydraulic network saddle-point system.
 
-TPU-native replacement for the reference's PETSc KSP + MUMPS direct solve
+JAX replacement for the reference's PETSc KSP + MUMPS direct solve
 (``src/networks_fenicsx/solver.py:16-143``; default options preonly+LU+MUMPS,
 ``solver.py:58-65``).  Methods:
 
@@ -12,16 +12,15 @@ TPU-native replacement for the reference's PETSc KSP + MUMPS direct solve
   saddle-point system to an SPD weighted graph Laplacian on the
   bifurcations.  That Laplacian is solved by ``schur_method``:
   ``"tree"`` (auto for forests / small cycle cores) — scatter-free
-  level-ordered elimination, exact and O(B); ``"dense"`` — mixed-precision
-  Cholesky (f32 factor + f64 iterative refinement; native f64 Cholesky via
-  ``"dense_f64"``); ``"cg"`` — matrix-free Jacobi-preconditioned CG for
+  level-ordered elimination, exact and O(B); ``"dense"`` — Jacobi-scaled
+  Cholesky with a singularity pivot gate; ``"cg"`` — matrix-free
+  Jacobi-preconditioned CG for
   huge cyclic cores.  All per-edge work is batched over the edge axis —
-  embarrassingly parallel, shardable across TPU devices.
+  embarrassingly parallel, shardable across devices.
 * ``"schur_p"`` (default for continuous pressure) — per-edge flux
   elimination (batched f64 Cholesky of the edge mass bands) + CG on the
   SPD reduced operator over (p, −λ).
-* ``"dense"`` — assembled dense solve; float64 LU on CPU, float32 LU +
-  float64 iterative refinement on TPU (XLA's LU expander is f32-only).
+* ``"dense"`` — assembled dense solve (float64 LU).
 * ``"minres"`` — on-device MINRES on the symmetrized block system with a
   block-diagonal preconditioner (generic saddle-point fallback).
 * ``"host_lu"`` — SciPy sparse LU on the host: the direct-solver
@@ -62,11 +61,15 @@ import jax.numpy as jnp
 from . import assembly as _assembly
 from .function import NetworkFunction
 from .ops import elements, krylov
-from .ops.mixed_precision import scaled_cholesky_factor, scaled_cholesky_solve
+from .ops.scaled_cholesky import scaled_cholesky_factor, scaled_cholesky_solve
 from .utils.config import SolverOptions
 from .utils.timing import timed
 
 __all__ = ["Solver", "SolveInfo"]
+
+# Full-f32 matmuls: on GPUs XLA's default f32 precision may take TF32
+# passes (10-bit mantissa), which the float32 serving mode cannot afford.
+_HI = jax.lax.Precision.HIGHEST
 
 
 class SolveInfo(typing.NamedTuple):
@@ -594,7 +597,7 @@ def _make_edge_data(
         M_II = cell_mass[:, ints][:, :, ints]
         L = jnp.linalg.cholesky(M_II)
         Minv_IE = jax.scipy.linalg.cho_solve((L, True), M_IE)
-        mt = M_EE - jnp.einsum("cij,cjk->cik", M_EI, Minv_IE)
+        mt = M_EE - jnp.einsum("cij,cjk->cik", M_EI, Minv_IE, precision=_HI)
         interior = (Minv_IE,)
 
     mt = mt.reshape(E, N, 2, 2)
@@ -673,9 +676,9 @@ def _prepare_edge_data(asm: _assembly.HydraulicNetworkAssembler) -> _EdgeData:
 class _LambdaPlan(typing.NamedTuple):
     """Static sorted-scatter plan for assembling the bifurcation system.
 
-    TPU scatters with arbitrary indices serialize; sorting the edge→
-    bifurcation incidences once on the host turns the (E → B) reductions
-    into sorted segment-sums plus sorted-unique dense updates."""
+    Sorting the edge→bifurcation incidences once on the host turns the
+    (E → B) reductions into sorted segment-sums plus sorted-unique dense
+    updates instead of arbitrary-index scatters."""
 
     t_sel: np.ndarray  # edges with a bifurcation at their target, sorted by it
     t_bins: np.ndarray  # sorted unique target bifurcations
@@ -721,8 +724,7 @@ def _lambda_system_sorted(ed: _EdgeData, B: int, lp: _LambdaPlan):
         ):
             # contiguous bin range (every multiplier touched on this side —
             # lattices, dense graphs): a static slice-add instead of the
-            # B-sized scatter, which serializes on TPU (measured ~28 ms per
-            # scatter pair at B=262144 — it dominated the whole grid solve)
+            # B-sized scatter
             lo = int(bins[0])
             out_diag = out_diag.at[lo : lo + bins.size].add(both[:, 0])
             out_rhs = out_rhs.at[lo : lo + bins.size].add(both[:, 1])
@@ -772,9 +774,8 @@ def _plan_shift_matvec(
     (lattices: δ ∈ {±1, ±row_stride} plus stubs; chains/banded meshes
     likewise), the per-iteration neighbour lookup becomes, per class, a
     zero-padded SHIFT of λ times a per-class weight vector — contiguous
-    slices instead of the serialized ~13 ns/element device gather that
-    otherwise dominates every Krylov iteration (measured 1.9 ms per matvec
-    at B=16384 on a v5e).  The class weight vectors are assembled from the
+    slices instead of a device gather per Krylov iteration (the gain is
+    not measured on the H100).  The class weight vectors are assembled from the
     runtime conductances once per solve via the sorted fold machinery.
 
     Returns a list of ``(delta, rows_sorted, edge_sel)`` host arrays.
@@ -950,20 +951,19 @@ def _dct_capacitance_factor(plan: _DctPlan, wx, wy, w_r: jnp.ndarray, dt):
     inv = jnp.where(pos, 1.0 / jnp.where(pos, sym, 1.0), 0.0)
     kappa = 1.0 / (wx * plan.len_x)
     g = kappa * jnp.asarray(plan.g_geo, dt)  # (r, B)
+    M = _bordered_capacitance(plan, g, w_r)
+    return {"inv": inv, "g": g, "Minv": jnp.linalg.inv(M)}
+
+
+def _bordered_capacitance(plan: _DctPlan, g: jnp.ndarray, w_r: jnp.ndarray):
+    """The (r+1)² bordered capacitance system: stub charges q_r =
+    w_r·λ[row_r] plus the additive constant γ of the pseudo-inverse (range
+    condition 1ᵀ(b−Uq)=0)."""
     r = int(plan.stub_rows.size)
-    # bordered capacitance system: stub charges q_r = w_r·λ[row_r] plus the
-    # additive constant γ of the pseudo-inverse (range condition 1ᵀ(b−Uq)=0)
-    M = jnp.zeros((r + 1, r + 1), dt)
+    M = jnp.zeros((r + 1, r + 1), g.dtype)
     M = M.at[:r, :r].set(g[:, plan.stub_rows].T + jnp.diag(1.0 / w_r))
     M = M.at[:r, r].set(-1.0)
-    M = M.at[r, :r].set(1.0)
-    # TPU LU supports f32 only: invert the tiny bordered matrix in f32 and
-    # polish to f64 with two Newton steps X ← X(2I − MX) (pure matmuls)
-    Minv = jnp.linalg.inv(M.astype(jnp.float32)).astype(dt)
-    eye2 = 2.0 * jnp.eye(r + 1, dtype=dt)
-    for _ in range(2):
-        Minv = Minv @ (eye2 - M @ Minv)
-    return {"inv": inv, "g": g, "Minv": Minv}
+    return M.at[r, :r].set(1.0)
 
 
 def _dct_capacitance_solve(
@@ -974,9 +974,8 @@ def _dct_capacitance_solve(
     The geometric L⁺ columns scale to runtime conductances by
     κ = 1/(w_x·len_x) (scalar resistance makes the whole separable part
     a uniform multiple of the geometric operator).  Refinement passes
-    with the exact matvec absorb any reduced-precision FFT lowering
-    (TPU FFTs run f32 internally), landing at f64 direct-solve accuracy.
-    Split into :func:`_dct_capacitance_factor` (conductance side) and
+    with the exact matvec grind the transform roundoff down to direct-
+    solve accuracy.  Split into :func:`_dct_capacitance_factor` (conductance side) and
     :func:`_dct_capacitance_apply` (per-rhs) for factor-reuse serving."""
     state = _dct_capacitance_factor(plan, wx, wy, w_r, rhs.dtype)
     return _dct_capacitance_apply(plan, state, rhs, matvec)
@@ -987,8 +986,8 @@ def _dct2_matrix_device(n: int, tdt) -> jnp.ndarray:
 
     Used for wide lattices (> 4096 per side) where an ``(n, n)`` f64 host
     constant would bake hundreds of MB into the executable.  The cosine
-    ARGUMENT must form in f64 even when a f32 matrix is requested (the
-    refinement transform): ``pi*(j+0.5)*j`` reaches ~n²/2 ≈ 1e7+ here, so
+    ARGUMENT must form in f64 even when a f32 matrix is requested (float32
+    serving): ``pi*(j+0.5)*j`` reaches ~n²/2 ≈ 1e7+ here, so
     an f32 product carries ~2e-3 rad of phase error — four orders worse
     than rounding an f64-generated matrix to f32.
     ``c = D @ b``, ``b = D.T @ c``."""
@@ -1009,96 +1008,47 @@ def _dct_capacitance_apply(
     g = state["g"]
     Minv = state["Minv"]
     r = int(plan.stub_rows.size)
-    # The FIRST direct pass always transforms in the compute dtype
-    # (exact); on TPU the f64 refinement passes may run their transforms
-    # in f32 MXU dots — they act on residuals already ~ε_f64·κ of the
-    # answer, so the cheap transform is invisible in the result.
-    fft_dt = (
-        jnp.float32
-        if dt == jnp.float64 and jax.default_backend() == "tpu"
-        else dt
-    )
-
-    # Matmul DCT: TPU FFTs lower poorly (the 512² dctn+idctn pair
-    # profiles at ~1.1 ms) while the MXU runs the same transform as
-    # two (n, n) matmuls per axis — O(n³) beats O(n² log n) by the
-    # hardware ratio until n is in the thousands.  Precision: the
-    # FIRST direct pass runs the matmuls in the compute dtype (f64
-    # dots emulate as while-lowered VPU programs, ~1.1 ms at 512² but
-    # exact); refinement passes act on residuals that are already
-    # ~ε_f64·κ of the answer, so their transforms run in f32 MXU
-    # dots — a κ·ε_f32-relative error of a tiny correction, invisible
-    # in the result.  (All-f32 transforms are NOT enough: measured
-    # stalls at 5.3e-6 / 6.5e-3 relative λ residual on 128²/512².)
-    #
+    # Matmul DCT: the separable transform as two (n, n) matmuls per axis,
+    # in the compute dtype with HIGHEST precision (no TF32 passes for f32).
     # The transform matrices come from one of two providers — a host
     # constant up to 4096 per side, or on-device generation from iota
     # above it (an (n, n) f64 host constant at that size would bake
-    # hundreds of MB into the executable; the old silent > 4096 f32-FFT
-    # fallback stalled at 6.5e-3 rel λ residual and is gone).  ONE shared
-    # Lplus body serves both so a precision/normalization fix can never
-    # drift between them; matrices are created at closure-creation time —
-    # inside the trace, but once per dtype, not once per application.
+    # hundreds of MB into the executable).  ONE shared Lplus body serves
+    # both so a precision/normalization fix can never drift between them.
 
-    if max(s, ny) <= 4096:
-        _host_D: dict[int, np.ndarray] = {}
+    def _make_D(n: int) -> jnp.ndarray:
+        if max(s, ny) > 4096:
+            return _dct2_matrix_device(n, dt)  # see its argument-precision rule
+        j = np.arange(n)
+        D = np.cos(np.pi * (j[None, :] + 0.5) * j[:, None] / n)
+        D *= np.sqrt(2.0 / n)
+        D[0] *= np.sqrt(0.5)
+        return jnp.asarray(D, dt)  # orthonormal DCT-II: c = D@b, b = D.T@c
 
-        def _dct2_matrix(n: int) -> np.ndarray:
-            if n not in _host_D:
-                j = np.arange(n)
-                D = np.cos(np.pi * (j[None, :] + 0.5) * j[:, None] / n)
-                D *= np.sqrt(2.0 / n)
-                D[0] *= np.sqrt(0.5)
-                _host_D[n] = D  # orthonormal DCT-II: c = D@b, b = D.T@c
-            return _host_D[n]
+    Dx = _make_D(s)
+    Dy = _make_D(ny)
+    mm = functools.partial(jnp.matmul, precision=_HI)
 
-        def _make_D(n: int, tdt) -> jnp.ndarray:
-            return jnp.asarray(_dct2_matrix(n), tdt)
-
-    else:
-        _make_D = _dct2_matrix_device  # see its argument-precision rule
-
-    def _make_matmul_lplus(tdt):
-        Dx = _make_D(s, tdt)
-        Dy = _make_D(ny, tdt)
-        inv_t = inv.astype(tdt)
-
-        def Lplus(b):
-            B2 = b.reshape(ny, s).astype(tdt)
-            c = Dy @ B2 @ Dx.T
-            return (Dy.T @ (c * inv_t) @ Dx).reshape(-1).astype(dt)
-
-        return Lplus
-
-    Lplus_exact = _make_matmul_lplus(dt)
-    Lplus_fast = (
-        _make_matmul_lplus(fft_dt) if fft_dt != dt else Lplus_exact
-    )
+    def Lplus(b):
+        c = mm(mm(Dy, b.reshape(ny, s)), Dx.T)
+        return mm(mm(Dy.T, c * inv), Dx).reshape(-1)
 
     rows = jnp.asarray(plan.stub_rows)
 
-    def _direct(Lplus):
-        def direct(b):
-            z = Lplus(b)
-            v = jnp.concatenate([z[rows], jnp.sum(b)[None]])
-            sol = Minv @ v
-            # r-row broadcast-sum, not an (r)×(r, B) f64 dot (the dot
-            # while-lowers on TPU at ~205 µs; the fused broadcast is free)
-            corr = jnp.sum(sol[:r, None] * g, axis=0)
-            return z - corr + sol[r]
-
-        return direct
+    def direct(b):
+        z = Lplus(b)
+        v = jnp.concatenate([z[rows], jnp.sum(b)[None]])
+        sol = mm(Minv, v)
+        corr = jnp.sum(sol[:r, None] * g, axis=0)
+        return z - corr + sol[r]
 
     # refinement passes: contraction ≈ κ·ε_trans per pass (κ ~ O(n²) for
-    # an n-wide lattice).  The first pass is exact in the compute dtype
-    # at every size now (the old > 4096 f32-FFT fallback is gone), so two
-    # passes grind out f64 roundoff; the residual stays surfaced in
-    # SolveInfo regardless.
+    # an n-wide lattice), so two passes grind out roundoff; the residual
+    # stays surfaced in SolveInfo regardless.
     n_refine = 2
-    lam = _direct(Lplus_exact)(rhs)
-    refine = _direct(Lplus_fast)
+    lam = direct(rhs)
     for _ in range(n_refine):
-        lam = lam + refine(rhs - matvec(lam))
+        lam = lam + direct(rhs - matvec(lam))
     return lam
 
 
@@ -1130,9 +1080,7 @@ def _plan_grid_layout(asm: _assembly.HydraulicNetworkAssembler, dct: _DctPlan):
     every structural map in the fused solve — Schur rhs assembly, the
     refinement-matvec stencil, and the λ→edge-endpoint expansion —
     becomes a 2-D SLICE of the λ grid instead of an E-sized device
-    gather/scatter.  Profiled at 512² on a v5e: the general path spends
-    ~56 ms/solve in those gathers (segment folds + λ expansion); this
-    layout removes all of them.  The same prepare-args/host-flatten
+    gather/scatter (the gain is not measured on the H100).  The same prepare-args/host-flatten
     machinery as the forest blocked layout applies (``_BlockedExecutor``)."""
     nx, ny = dct.s, dct.ny
     mesh = asm.network
@@ -1788,7 +1736,7 @@ def attach_core_plan(
         )
         nd_kwargs = dict(
             # top separators stall as wide cliques under ANY order — an
-            # ≤8k dense frontal tail is MXU-cheap (the multifrontal
+            # ≤8k dense frontal tail is one dense factorization (the multifrontal
             # analog), and stopping there minimises device round count;
             # beyond 8k the stalled remainder is eliminated as true
             # multifrontal supernodal fronts (512²+ per-edge-R lattices)
@@ -1825,8 +1773,7 @@ class _LevelPlan(typing.NamedTuple):
     every per-level read is a contiguous dynamic slice, parent updates are
     full-level sorted segment-sums placed back with dynamic_update_slice,
     and the only gathers are parent lookups — no arbitrary-index scatter
-    remains (TPU scatters serialize; slices and sorted segment reductions
-    vectorize)."""
+    remains."""
 
     perm: np.ndarray  # (B,) original bif index -> permuted position
     inv_perm: np.ndarray  # (B,) permuted position -> original bif index
@@ -2008,8 +1955,8 @@ def _structured_take(vec: jnp.ndarray, idx: np.ndarray, max_pieces: int = 6):
     """``vec[idx]`` (with ``idx < 0`` → 0) WITHOUT a device gather when the
     host-static index array is structured, else None.
 
-    TPU gathers move ~25M rows/s regardless of row order — two orders of
-    magnitude below slice bandwidth — so the graph-structured index maps
+    A gather is much slower than a slice (by how much is not measured on the H100), so the
+    graph-structured index maps
     (identity/BFS tree numbering: slices and uniform-fanout repeats) are
     pattern-matched on the host at trace time and emitted as static slices
     / broadcast-reshapes.  Falls back (returns None) for irregular maps.
@@ -2064,14 +2011,13 @@ def _segsum_sorted(
 ):
     """Sorted-segment sum with static (host-known) segment ids.
 
-    Lowering note: ``jax.ops.segment_sum`` becomes an XLA scatter-add,
-    which SERIALIZES on TPU (~50ns/row — 3-5 ms per reduction at benchmark
-    sizes, measured).  Since the segment ids are host-static and network
-    segments are tiny (a bifurcation has a handful of incident edges, a
-    tree parent a couple of children), the reduction is instead folded
-    through a host-precomputed ``(num_segments, K)`` gather matrix —
-    gathers vectorize on TPU.  Exact f64 (only the within-segment addition
-    order changes).  Falls back to segment_sum for pathological K (a hub
+    Lowering note: ``jax.ops.segment_sum`` becomes an XLA scatter-add
+    (atomic on GPUs, so its f64 summation order may vary from run to run;
+    the fold below is fixed-order).  Since the segment ids are host-static
+    and network segments are tiny (a bifurcation has a handful of incident
+    edges, a tree parent a couple of children), the reduction is instead
+    folded through a host-precomputed ``(num_segments, K)`` gather
+    matrix.  Exact f64 (only the within-segment addition order changes).  Falls back to segment_sum for pathological K (a hub
     node with thousands of incident edges).
 
     A cumsum+boundary-difference formulation would also vectorize but
@@ -2082,7 +2028,7 @@ def _segsum_sorted(
 
     ``vals`` may be (n,) or multi-channel (n, C) — channels sharing one
     segment layout reduce through a single gather (one kernel instead of
-    C, which matters under f64 emulation where gathers dominate).
+    C).
 
     ``sel`` (host-static) composes a pre-selection ``vals[sel]`` into the
     fold's gather matrix, so selection + reduction cost ONE device gather
@@ -2268,10 +2214,10 @@ class _BlockedLevel(typing.NamedTuple):
 class _BlockedPlan(typing.NamedTuple):
     """Interleave-free elimination layout for uniformly-binary forests.
 
-    Profiling (STATUS.md "blocked-sibling" table) shows the TPU executes
-    within-lane element reordering — adjacent-pair folds, K=2 repeats —
-    at ~2-5 ms per op at B=5e5 f64, while contiguous slices, whole-array
-    adds, broadcasts and concats are ~free.  This plan renumbers
+    Within-row element reordering — adjacent-pair folds, K=2 repeats — was
+    the costly part of the general executor on the hardware this was tuned
+    on, while contiguous slices, whole-array adds, broadcasts and concats
+    were ~free (not measured on the H100).  This plan renumbers
     bifurcations level-major with, per level, all first-siblings before
     all second-siblings, and edges as [root in-edges][per level: out1
     block, out2 block].  Every step of assembly, elimination,
@@ -2933,8 +2879,8 @@ def _blocked_uniform_solve(
     :func:`_make_edge_data_uniform` / :func:`_make_edge_data_scalar` and
     :func:`_solution_blocks_T` (a change to either must be applied here
     too); equality between the blocked and general executors is pinned by
-    ``tests/test_blocked.py`` and the on-hardware
-    ``blocked-vs-general-executor`` check in ``scripts/tpu_validate.py``."""
+    ``tests/test_blocked.py`` and the on-device
+    ``blocked vs general executor`` check in ``chip_smoke.py``."""
     mesh = asm.network
     N, E = mesh.N, mesh.num_edges
     dt = R_data.dtype
@@ -2998,7 +2944,7 @@ class BlockedFactorization:
 
     The reference's KSP holds the MUMPS factorization and re-solves for
     new right-hand sides without refactorizing (reference
-    ``solver.py:58-65``); this is the TPU-native analog for the blocked
+    ``solver.py:58-65``); this is the analog for the blocked
     fast layout: :meth:`factor` runs the resistance-side work once
     (condensed conductances + the eliminated per-level diagonals and
     elimination factors — a device-resident pytree), and :meth:`solve`
@@ -3697,9 +3643,8 @@ def _tree_eliminate_factor(
         db = d[e]
         factor = w / db
         # Fold the parent updates with gathers only (host-planned exact
-        # tree sums + inverse-map apply): XLA lowers segment_sum /
-        # scatter-add SERIALIZED on TPU — measured 20-25 ms per reduction
-        # at web scale, which dominated the whole peel.
+        # tree sums + inverse-map apply, fixed summation order) instead of
+        # segment_sum / scatter-add.
         sel_np = np.flatnonzero(parents >= 0)
         upar, inv = np.unique(parents[sel_np], return_inverse=True)
         if upar.size:
@@ -3729,7 +3674,7 @@ def _tree_eliminate_factor(
     elif plan.core_size > 0:
         # Dense factor of the residual cycle core: peeled diagonals are
         # already folded into d; off-diagonals are the original core pair
-        # conductances (mixed-precision Cholesky like the dense path).
+        # conductances (Jacobi-scaled Cholesky like the dense path).
         cn = jnp.asarray(plan.core_nodes)
         Bc = plan.core_size
         Lc = jnp.zeros((Bc, Bc), dtype=diag.dtype)
@@ -4010,14 +3955,13 @@ def build_schur_executor(
     f_is_zero = f_zero and elide_zero_f
 
     # SolverOptions.dtype = "float32" switches the whole fused solve to
-    # single precision (a fast serving mode on TPU, where f64 is emulated;
-    # expect ~1e-5 relative accuracy instead of the f64 contract).
+    # single precision (a serving mode; expect ~1e-5 relative accuracy
+    # instead of the f64 contract).
     comp_dt = jnp.float32 if opts.dtype == "float32" else jnp.float64
     # output_dtype = "float32" with a float64 solve is the mixed serving
     # contract: values carry f64-solve accuracy (rounded once on output)
-    # while the big solution blocks leave the program in f32 — under the
-    # TPU's split-f32 X64 emulation this drops the X64Combine output
-    # recombination and halves output bytes (see SolverOptions docs).
+    # while the big solution blocks leave the program in f32, halving
+    # output bytes (see SolverOptions docs).
     if opts.output_dtype == "same":
         out_dt = comp_dt
     else:
@@ -4140,29 +4084,14 @@ def build_schur_executor(
                 # explicitly requested dense/cg never lands here.
                 lam = _dct_lattice_solve(dct_plan, ed, rhs, matvec)
                 iters = jnp.zeros((), dtype=jnp.int32)
-            elif schur_method in ("dense", "dense_f64"):
+            elif schur_method == "dense":
                 L = jnp.zeros((B, B), dtype=ed.W.dtype)
                 L = L.at[jnp.arange(B), jnp.arange(B)].add(diag)
                 L = L.at[s_idx, t_idx].add(-off_w)
                 L = L.at[t_idx, s_idx].add(-off_w)
-                if schur_method == "dense_f64":
-                    chol = jnp.linalg.cholesky(L)
-                    lam = jax.scipy.linalg.cho_solve((chol, True), rhs)
-                    piv = jnp.diagonal(chol)
-                    # Singularity guard (the MUMPS zero-pivot analog): a
-                    # network component with no boundary makes the
-                    # Laplacian singular — pivots collapse or go NaN.
-                    ok = jnp.all(jnp.isfinite(piv)) & (
-                        jnp.min(piv) > 1e-7 * jnp.max(piv)
-                    )
-                    lam = jnp.where(ok, lam, jnp.nan)
-                else:
-                    # Mixed precision: float64 Cholesky is emulated (slow)
-                    # on TPU — the shared Jacobi-scaled f32 factor + f64
-                    # refinement kernel (incl. the singularity pivot gate).
-                    lam = scaled_cholesky_solve(
-                        scaled_cholesky_factor(L), rhs
-                    )
+                # the shared Jacobi-scaled Cholesky, incl. the singularity
+                # pivot gate (the MUMPS zero-pivot analog)
+                lam = scaled_cholesky_solve(scaled_cholesky_factor(L), rhs)
                 iters = jnp.zeros((), dtype=jnp.int32)
             else:
                 if opts.cg_precond not in ("auto", "mg", "chebyshev", "jacobi"):
@@ -4425,8 +4354,8 @@ def _backsub_from_lambda(
 
     ``host_bifs``: host-static (start_bif, end_bif) copies; when given, the
     λ→edge broadcasts are pattern-matched (see :func:`_structured_take`) —
-    at 1M edges each of these two gathers costs ~30 ms on a v5e, vs <1 ms
-    for the slice/broadcast forms tree numbering admits."""
+    the slice/broadcast forms tree numbering admits replace two E-sized
+    gathers."""
     E = ed.W.shape[0]
     s_is_bif = ed.start_bif >= 0
     t_is_bif = ed.end_bif >= 0
@@ -4465,7 +4394,7 @@ def _backsub_from_lambda(
 
     # chain momentum values m_i and pressure back-substitution.
     # Scatter-free: node contributions assembled by shifted concatenation
-    # (TPU scatters serialize; concats/pads fuse).
+    # (concats/pads fuse).
     qj, qj1 = q_chain[:, :-1], q_chain[:, 1:]
     if ed.mt is None and k == 1:
         # P1 scalar layout: M_c = a_c * [[1/3, 1/6], [1/6, 1/3]]
@@ -4481,7 +4410,7 @@ def _backsub_from_lambda(
         mc1 = a * (float(Mt[1, 0]) * qj + float(Mt[1, 1]) * qj1)
     else:
         qc = jnp.stack([qj, qj1], axis=-1)  # (E, N, 2)
-        mc = jnp.einsum("enij,enj->eni", ed.mt, qc)  # (E, N, 2)
+        mc = jnp.einsum("enij,enj->eni", ed.mt, qc, precision=_HI)  # (E, N, 2)
         mc0, mc1 = mc[:, :, 0], mc[:, :, 1]
     zero_col = jnp.zeros((E, 1), dtype=ed.W.dtype)
     m_nodes = jnp.concatenate([mc0, zero_col], axis=1) + jnp.concatenate(
@@ -4498,13 +4427,15 @@ def _backsub_from_lambda(
         if Minv_IE.ndim == 2:
             # scalar layout: fixed scale-free recovery matrix, one einsum
             q_int = -jnp.einsum(
-                "ij,enj->eni", Minv_IE, jnp.stack([qj, qj1], axis=-1)
+                "ij,enj->eni", Minv_IE, jnp.stack([qj, qj1], axis=-1),
+                precision=_HI,
             )
         else:
             q_int = -jnp.einsum(
                 "cij,cj->ci",
                 Minv_IE,
                 jnp.stack([qj, qj1], axis=-1).reshape(E * N, 2),
+                precision=_HI,
             ).reshape(E, N, k - 1)
         cell_block = jnp.concatenate(
             [q_chain[:, :-1, None], q_int], axis=2
@@ -4520,18 +4451,14 @@ def _solution_blocks_T(
 ) -> tuple[jnp.ndarray, jnp.ndarray, jnp.ndarray]:
     """Solution as j-major device blocks: ``(q_T (k·N+1, E), p_T (N, E), λ)``.
 
-    The TPU-native output layout: edges run along the 128-wide lane axis.
-    The edge-major ``(E, m)`` form with m ≈ N pads every (8, 128) tile to
-    128 lanes (≈3× wasted HBM write traffic for the benchmark N=40), and
-    the flat global vector costs a further physical relayout plus a concat
-    pass — measured 2.74 ms → 0.30 ms for the 16-generation benchmark
-    tail on a v5e chip.  Both blocks keep EDGE-MAJOR columns (edge id
-    order): the global flux dof order wants edges color-sorted, but the
-    greedy coloring's permutation is unstructured, and a device gather of
-    even the (E,) per-edge scalars serializes on TPU (measured 2×0.88 ms
-    at E=65535 — would dominate the whole solve).  The host applies the
-    color permutation during flatten instead (a numpy fancy-index on the
-    pulled array)."""
+    The serving output layout: edges run along the minor (contiguous)
+    axis.  The edge-major ``(E, m)`` form with a short m ≈ N, and the flat
+    global vector, each cost a further relayout pass (tuned on earlier
+    hardware; the gain is not measured on the H100).  Both blocks keep
+    EDGE-MAJOR columns (edge id order): the global flux dof order wants
+    edges color-sorted, but the greedy coloring's permutation is
+    unstructured, so the host applies it during flatten (a numpy
+    fancy-index on the pulled array) instead of a device gather."""
     mesh = asm.network
     k, N = asm.flux_degree, mesh.N
     host_bifs = (np.asarray(asm._edge_start_bif), np.asarray(asm._edge_end_bif))
@@ -4672,7 +4599,7 @@ def _continuous_pressure_solve(
         .at[:, jnp.asarray(rows), jnp.asarray(cols)]
         .add(cell_mass.reshape(E, -1))
     )
-    chol = jnp.linalg.cholesky(A_blocks)  # (E, m, m), f64 (TPU-supported)
+    chol = jnp.linalg.cholesky(A_blocks)  # (E, m, m), f64
 
     # --- flux-order permutation: global flux layout is edges sorted by
     # (color, id); per-edge batched ops use edge-id order.
@@ -4761,21 +4688,8 @@ def _to_dense(A) -> jnp.ndarray:
 
 
 def _dense_solve_f64(A: jnp.ndarray, b: jnp.ndarray) -> jnp.ndarray:
-    """float64 dense solve that works on TPU: XLA's LU expander is f32-only
-    there, so factorise in f32 and polish with f64 iterative refinement."""
-    if jax.default_backend() == "cpu":
-        return jnp.linalg.solve(A, b)
-    lu, piv = jax.scipy.linalg.lu_factor(A.astype(jnp.float32))
-
-    def refine(carry, _):
-        x = carry
-        r = b - A @ x
-        dx = jax.scipy.linalg.lu_solve((lu, piv), r.astype(jnp.float32)).astype(b.dtype)
-        return x + dx, None
-
-    x0 = jax.scipy.linalg.lu_solve((lu, piv), b.astype(jnp.float32)).astype(b.dtype)
-    x, _ = jax.lax.scan(refine, x0, None, length=4)
-    return x
+    """Dense LU solve in the operands' dtype (float64 by default)."""
+    return jnp.linalg.solve(A, b)
 
 
 def _generic_solve(

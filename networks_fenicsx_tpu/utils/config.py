@@ -28,7 +28,7 @@ class SolverOptions:
     Attributes:
         method: Solve strategy.
             ``"schur"`` — per-edge static condensation to the bifurcation
-            Schur complement (exact; the TPU-native replacement for MUMPS LU);
+            Schur complement (exact; the replacement for MUMPS LU);
             ``"dense"`` — assemble the full block matrix densely and solve
             (small systems / verification);
             ``"minres"`` — MINRES on the symmetrized block system with a
@@ -55,16 +55,14 @@ class SolverOptions:
             ``output_dtype="float32"`` is the mixed serving contract:
             the solve runs in full f64 (so the *values* carry f64-solve
             accuracy, only rounded on output) while the large solution
-            blocks leave the program in f32 — on TPU, where f64 is
-            emulated as split f32 pairs, this removes the X64 output
-            recombination passes and halves output bandwidth, which
-            dominate the device program at serving depth.  Convergence
+            blocks leave the program in f32, halving output bytes (whether
+            that pays on the H100 is not measured yet).  Convergence
             diagnostics (residual, rhs_norm) always stay in ``dtype``.
         cheb_degree: Degree of the Chebyshev-Jacobi polynomial
             preconditioner used by the CG path (1 = plain Jacobi).  Each
             preconditioner application runs this many dot-free matvecs,
             cutting the outer iteration count ~degree× and amortizing
-            CG's sequential per-iteration overhead on TPU.
+            CG's sequential per-iteration overhead.
         cg_precond: CG preconditioner choice — ``"auto"`` (aggregation
             multigrid on large lattice-like multiplier graphs, Chebyshev
             otherwise), ``"mg"`` (force multigrid; raises if the topology
@@ -110,7 +108,7 @@ class SolverOptions:
         _check(
             self.schur_method,
             "schur_method",
-            ("auto", "tree", "tree_dist", "dense", "dense_f64", "cg", "dct"),
+            ("auto", "tree", "tree_dist", "dense", "cg", "dct"),
         )
         _check(self.cg_precond, "cg_precond", ("auto", "mg", "chebyshev", "jacobi"))
         _check(self.dtype, "dtype", ("float64", "float32"))
@@ -142,11 +140,11 @@ def _check(value: str, name: str, allowed: tuple[str, ...]) -> None:
 class ShardingOptions:
     """Options for edge-partitioned multi-device execution.
 
-    The TPU-native analog of the reference's MPI domain decomposition
+    The analog of the reference's MPI domain decomposition
     (``mesh.create_cell_partitioner(GhostMode.shared_facet)``, reference
     ``mesh.py:331-341``): edges are partitioned across the device mesh and the
-    shared bifurcation (multiplier) rows are reduced with ``psum`` over ICI
-    instead of ghost updates.
+    shared bifurcation (multiplier) rows are reduced with ``psum`` instead of
+    ghost updates.
 
     Attributes:
         axis_name: Mesh axis name used by ``shard_map`` collectives.

@@ -1,6 +1,6 @@
 """Named wall-clock timing registry.
 
-TPU-native replacement for the DOLFINx C++ timing registry that the reference
+Replacement for the DOLFINx C++ timing registry that the reference
 uses via ``dolfinx.common.timed`` decorators (11 sites, e.g. reference
 ``src/networks_fenicsx/mesh.py:29,117,138,425`` and
 ``src/networks_fenicsx/assembly.py:28,120,164,328``) and queries through

@@ -7,8 +7,9 @@ pipelined ms/solve for each.  The virtual devices share one host's cores,
 so this is NOT a speedup measurement; it demonstrates that the sharded
 blocked program's per-solve cost stays within the same ballpark as the
 serial blocked program (VERDICT round-2 item 1 "done when"), i.e. the
-decomposition adds no super-constant overhead.  Run on a real pod for ICI
-numbers.
+decomposition adds no super-constant overhead.  Run on real multi-GPU
+hardware (``chip_smoke.py --multi`` checks the same paths there) for
+collective costs.
 
 Usage: NXFX_CPU_DEVICES=8 python scripts/bench_sharded.py [n] [N]
 """

@@ -9,7 +9,7 @@ per-edge chains by physical coordinates.
 This script needs the reference's environment (fenics-dolfinx >= 0.10,
 petsc4py, mpi4py — e.g. the ghcr.io/fenics/dolfinx/dolfinx:stable
 container with this repo and the reference mounted); it is NOT runnable in
-the TPU build image and exists so CI with that container can cross-check
+this package's own image and exists so CI with that container can cross-check
 the committed exact-rational goldens against the reference implementation
 itself (BASELINE.md's 1e-8 matching contract).
 

@@ -1,12 +1,16 @@
 """Microbenchmark of the batched dense primitives a tree-multifrontal
-core executor would lean on (round-5 design probe): batched f64/f32
-Cholesky, cho_solve, matmul and batched 2-D gathers at the shapes a
-320² per-edge-R lattice produces (1600 leaf fronts ~112², halving
-counts up to one ~640² top separator front).
+core executor leans on: batched f64/f32 Cholesky, cho_solve, matmul and
+batched 2-D gathers at the shapes a 320² per-edge-R lattice produces
+(1600 leaf fronts ~112², halving counts up to one ~640² top separator
+front), plus the lattice path's separable transform at 512² as
+``jax.scipy.fft.dctn``/``idctn`` against the matmul DCT the solver uses.
+
+Prints the device and, on a GPU, the card's name and power limit.
 
 Usage: python scripts/profile_mf_primitives.py
 """
 
+import subprocess
 import sys
 import time
 
@@ -43,8 +47,34 @@ def bench(name, fn, *args, reps=8):
 def main():
     enable_compilation_cache()
     jax.config.update("jax_enable_x64", True)
-    print(f"backend: {jax.default_backend()}", flush=True)
+    d = jax.devices()[0]
+    print(f"device: {d.platform} {d.device_kind}", flush=True)
+    if d.platform == "gpu":
+        smi = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+            capture_output=True, text=True,
+        )
+        print(f"card: {smi.stdout.strip()}", flush=True)
     rng = np.random.default_rng(0)
+
+    # separable 2-D DCT-II + inverse at 512²: FFT-based dctn vs matmuls
+    n = 512
+    j = np.arange(n)
+    D = np.cos(np.pi * (j[None, :] + 0.5) * j[:, None] / n) * np.sqrt(2.0 / n)
+    D[0] *= np.sqrt(0.5)
+    hi = jax.lax.Precision.HIGHEST
+    for dt in (jnp.float64, jnp.float32):
+        tag = "f64" if dt == jnp.float64 else "f32"
+        X = jnp.asarray(rng.standard_normal((n, n)), dt)
+        Dd = jnp.asarray(D, dt)
+        fft_pair = jax.jit(lambda x: jax.scipy.fft.idctn(
+            jax.scipy.fft.dctn(x, norm="ortho") * 0.5, norm="ortho"))
+        mm_pair = jax.jit(lambda x, D: jnp.matmul(
+            jnp.matmul(D.T, jnp.matmul(jnp.matmul(D, x, precision=hi), D.T,
+                                       precision=hi) * 0.5, precision=hi),
+            D, precision=hi))
+        bench(f"{tag} dctn+idctn ({n},{n})", fft_pair, X)
+        bench(f"{tag} matmul DCT pair ({n},{n})", mm_pair, X, Dd)
 
     for dt in (jnp.float64, jnp.float32):
         tag = "f64" if dt == jnp.float64 else "f32"

@@ -1,7 +1,7 @@
 """Worker for the real multi-process (``jax.distributed``) test.
 
 Launched as ``python tests/_mp_worker.py <process_id> <num_processes>
-<port>`` by ``test_multiprocess.py`` — the TPU-native analog of the
+<port>`` by ``test_multiprocess.py`` — the single-controller analog of the
 reference CI's genuine ``mpiexec -n 2`` runs (reference
 ``.github/workflows/test_package.yml:33-45``): two OS processes, four CPU
 devices each, joined into one 8-device JAX runtime via

@@ -1,9 +1,7 @@
 """Bench emission contract: the FINAL stdout line must stay parseable.
 
-Round 4's official record was lost because ``bench.py`` printed one
-ever-growing JSON line that outgrew the driver's ~2,000-char stdout tail
-window (``BENCH_r04.json -> parsed: null`` despite rc=0).  The fix splits
-emission into a full ``BENCH_DETAIL.json`` artifact plus a compact final
+Readers keep only the tail (~2,000 chars) of stdout, so ``bench.py``
+writes the full record to ``BENCH_DETAIL.json`` and ends with a compact
 headline line; these tests pin the size contract so it cannot regress.
 """
 
@@ -24,8 +22,8 @@ def _load_bench():
 
 
 def _full_record(pad: int = 0) -> dict:
-    """A round-4-shaped full record; ``pad`` inflates string fields to
-    stress the truncation fallbacks."""
+    """A full-shaped record; ``pad`` inflates string fields to stress the
+    truncation fallbacks."""
     stage_common = {
         "core_plan": {"core": 102400, "rounds": 36, "slots": 1585820,
                       "fill": 1381660, "dense_tail": 0, "fronts": 11,
@@ -49,7 +47,6 @@ def _full_record(pad: int = 0) -> dict:
             "pipelined_mixed_out_f32_ms_per_solve": 0.197,
             "pipelined_factor_reuse_ms_per_solve": 0.18,
             "baseline_superlu_ms_median": 7321.1,
-            "roofline_hbm_peak_frac": 0.0799,
             "max_rel_err_vs_direct": 4.994160153351839e-13,
             "xl": {"generations": 18, "num_dofs": 21364654,
                    "assemble_solve_ms": 74.138,
@@ -64,10 +61,8 @@ def _full_record(pad: int = 0) -> dict:
                            "factor_reuse_ms_per_solve": 315.444,
                            "warm_compile_s": 232.3, "plan_s": 45.0,
                            "error": "e" * pad},
-            "tpu_validate": {"checks_passed": 31, "checks_total": 31,
-                             "failed": [], "backend": "tpu",
-                             "git_rev": "2353936"},
-            "backend": "tpu",
+            "device": {"platform": "gpu", "kind": "NVIDIA H100 80GB HBM3",
+                       "count": 1, "card": "NVIDIA H100 80GB HBM3, 700.00 W"},
         },
     }
 
@@ -81,16 +76,17 @@ def test_compact_headline_fits_tail_window():
     back = json.loads(line)
     assert back["value"] == 116_800_000.1
     assert back["headline"]["assemble_solve_ms"] == 45.712
-    assert back["headline"]["tpu_validate"] == "31/31"
+    assert back["device"] == {"platform": "gpu", "kind": "NVIDIA H100 80GB HBM3",
+                              "count": 1, "card": "NVIDIA H100 80GB HBM3, 700.00 W"}
     assert back["stages"]["supernodal"]["vs_superlu"] == 1.1
     assert back["stages"]["unstructured"]["factor_reuse_ms_per_solve"] == 20.999
     assert back["detail_file"] == "BENCH_DETAIL.json"
 
 
-def test_compact_headline_truncates_long_error_and_degraded():
+def test_compact_headline_truncates_long_error_and_device():
     bench = _load_bench()
     rec = _full_record(pad=5000)
-    rec["degraded"] = "d" * 5000
+    rec["detail"]["device"]["card"] = "d" * 5000
     rec["error"] = "x" * 5000
     line = json.dumps(bench._compact_headline(rec))
     assert len(line) < 1800, f"headline {len(line)} chars >= 1800"
@@ -111,25 +107,3 @@ def test_emit_record_writes_detail_and_final_line(tmp_path, capsys, monkeypatch)
     assert len(out[-1]) < 1800
     detail = json.loads((tmp_path / "BENCH_DETAIL.json").read_text())
     assert detail == rec
-
-
-def test_probe_timeout_keeps_partial_probe_json():
-    """ADVICE r4 (medium): a TimeoutExpired kill must not discard the
-    child's completed PROBE_JSON measurements.  Exercises the same parse
-    the bench's except-block performs on ``exc.stdout``."""
-    partial_stdout = (
-        "building plan...\n"
-        'PROBE_JSON {"lattice": [320, 320], "plan_s": 12.0}\n'
-        'PROBE_JSON {"lattice": [320, 320], "plan_s": 12.0, '
-        '"assemble_solve_ms": 900.0}\n'
-        "measuring factor-reuse...\n"
-    )
-    last = None
-    for line in partial_stdout.splitlines():
-        if line.startswith("PROBE_JSON "):
-            last = json.loads(line[len("PROBE_JSON "):])
-    assert last == {"lattice": [320, 320], "plan_s": 12.0,
-                    "assemble_solve_ms": 900.0}
-    # and bench.py's handler must contain exactly this salvage logic
-    src = (REPO / "bench.py").read_text()
-    assert "te.stdout" in src and "PROBE_JSON " in src

@@ -2,7 +2,7 @@
 
 The reference's default solver is a sparse direct factorization (MUMPS,
 reference ``solver.py:62``) that handles any topology with bounded fill.
-These tests pin the TPU-native equivalent: host-planned minimum-degree
+These tests pin the array-native equivalent: host-planned minimum-degree
 independent-set elimination of unstructured cyclic cores, exact at f64,
 on rings, random Delaunay capillary webs (a family the reference's
 generators cannot produce), fuzzed coefficients, sweeps and the sharded

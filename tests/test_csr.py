@@ -41,14 +41,14 @@ def test_fold_exact(method):
     np.testing.assert_allclose(np.asarray(data), S.data, atol=1e-13)
 
 
-def test_pallas_method_removed():
-    """Round-2 decision (VERDICT item 8): the f32 Mosaic fold kernel was
-    removed — it could never be validated compiled on the benchmark TPU —
-    and requesting it must fail loudly, not silently fall back."""
+@pytest.mark.parametrize("method", ["pallas", "scatter"])
+def test_unknown_method_raises(method):
+    """Only the gather fold and the segment_sum reference exist; any other
+    name must fail loudly, not silently fall back."""
     rows, cols, vals, n = _random_coo(n=150, nraw=3000)
     pat = pa.build_csr_pattern(rows, cols, (n, n))
-    with pytest.raises(ValueError, match="removed"):
-        pa.make_csr_assembler(pat, method="pallas")
+    with pytest.raises(ValueError, match="unknown csr assembler method"):
+        pa.make_csr_assembler(pat, method=method)
 
 
 def test_assembler_csr_kind():

@@ -68,8 +68,8 @@ def _scipy_solve(core_pairs, n_core, dc, w, rc):
 
 @pytest.mark.parametrize("k,w", [(7, 5), (3, 33), (1, 70)])
 def test_chol_inverse_batched(k, w):
-    """The custom batched kernel (XLA's own Cholesky serializes over the
-    batch dim on TPU) must reproduce inv(chol(A)) at f32 accuracy."""
+    """The batched front inverse must reproduce inv(chol(A)) at f32
+    accuracy."""
     rng = np.random.default_rng(k * 100 + w)
     M = rng.standard_normal((k, w, w))
     A = (M @ np.swapaxes(M, 1, 2) + w * np.eye(w)).astype(np.float32)

@@ -6,8 +6,7 @@ import networks_fenicsx_tpu.parallel.multihost as mh
 def test_single_host_noop(monkeypatch):
     """With no coordinator and no cluster env, the call is a no-op."""
     for var in ("NXFX_COORDINATOR", "NXFX_NUM_PROCESSES", "NXFX_PROCESS_ID",
-                "TPU_WORKER_HOSTNAMES", "SLURM_JOB_ID",
-                "MEGASCALE_COORDINATOR_ADDRESS", "OMPI_MCA_orte_hnp_uri"):
+                "SLURM_JOB_ID", "OMPI_MCA_orte_hnp_uri"):
         monkeypatch.delenv(var, raising=False)
     monkeypatch.setattr(mh, "_initialized", False)
     called = []

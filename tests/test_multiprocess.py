@@ -2,7 +2,7 @@
 
 The reference CI validates MPI parallelism with genuine ``mpiexec -n
 {2,3,4}`` process launches (reference
-``.github/workflows/test_package.yml:33-45``).  This is the TPU-native
+``.github/workflows/test_package.yml:33-45``).  This is the JAX
 analog: two OS processes join one JAX distributed runtime
 (``jax.distributed.initialize`` via ``parallel.multihost.ensure_distributed``
 — the real entry, not the mocks of ``test_multihost.py``) over gloo CPU

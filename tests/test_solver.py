@@ -301,7 +301,7 @@ def test_not_converged_raises():
 
 def test_float32_serving_mode():
     """SolverOptions(dtype='float32') runs the whole fused solve in single
-    precision (the TPU serving mode) within ~1e-5 of the f64 result."""
+    precision (the float32 serving mode) within ~1e-5 of the f64 result."""
     G = network_generation.make_arterial_tree(N=4, direction=np.array([0.1, 1, 0]))
     mesh = NetworkMesh(G, N=4, color_strategy="fast")
 

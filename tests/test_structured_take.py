@@ -1,6 +1,6 @@
 """Trace-time structured-index pattern matching (solver._structured_take).
 
-These host-side matchers replace TPU gathers with slices/broadcasts when
+These host-side matchers replace device gathers with slices/broadcasts when
 the static index map allows; a wrong match would silently corrupt every
 solve, so each pattern and each fallback is pinned against numpy here.
 """

@@ -1,4 +1,4 @@
-"""Functional-transform capabilities unique to the TPU-native design:
+"""Functional-transform capabilities unique to the JAX design:
 the fused solve is a pure function, so parameter sweeps batch with vmap
 and sensitivities come from jax.grad (adjoint) — no counterpart exists in
 the PETSc/MUMPS reference."""
